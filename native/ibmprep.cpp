@@ -1,4 +1,4 @@
-// Native IBM-preprocessing kernels for udales_tpu.
+// Native IBM-preprocessing kernels for udales_jax.
 //
 // C++ replacements for the hot geometry loops of prep/ibmprep.py /
 // prep/geom.py (the reference implements these in Fortran,

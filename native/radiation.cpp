@@ -1,4 +1,4 @@
-// Native radiation-preprocessing kernels for udales_tpu.
+// Native radiation-preprocessing kernels for udales_jax.
 //
 // C++ replacements for the hot loops of prep/radiation.py — facet-facet
 // view factors with centroid-ray occlusion (the reference uses the C

@@ -49,7 +49,7 @@ def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 128
     K = int(sys.argv[2]) if len(sys.argv) > 2 else 20
     from bench import _stage_urban
-    from udales_tpu.run import load_case
+    from udales_jax.run import load_case
     case = _stage_urban(n)
     model = load_case(case, "900", dtype="float32")
     state = model.cold_start(seed=43)

@@ -9,12 +9,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from udales_tpu.config import Config, DomainConfig, RunConfig, PhysicsConfig, \
+from udales_jax.config import Config, DomainConfig, RunConfig, PhysicsConfig, \
     WallsConfig, BCConfig, SubgridConfig, SGS_VREMAN, SGS_DNS
-from udales_tpu.grid import Grid
-from udales_tpu.ops.poisson import PoissonSolver, dct2, idct2
-from udales_tpu.run import Model
-from udales_tpu.state import initial_state, profile_fields, randomize
+from udales_jax.grid import Grid
+from udales_jax.ops.poisson import PoissonSolver, dct2, idct2
+from udales_jax.run import Model
+from udales_jax.state import initial_state, profile_fields, randomize
 import dataclasses
 
 
@@ -172,7 +172,7 @@ class TestPoisson:
 
     def test_bczp2_neumann_x(self):
         """BCzp=2 combined with a non-periodic (DCT) x direction."""
-        from udales_tpu.config import BC_PROFILE
+        from udales_jax.config import BC_PROFILE
         cfg = make_cfg()
         cfg = dataclasses.replace(
             cfg, bc=dataclasses.replace(cfg.bc, BCzp=2, BCxm=BC_PROFILE))
@@ -195,7 +195,7 @@ class TestPoissonFFT3D:
         """POISS_FFT3D (modpois.f90:808-882) inverts the fully periodic
         discrete Laplacian."""
         import dataclasses
-        from udales_tpu.config import POISS_FFT3D
+        from udales_jax.config import POISS_FFT3D
         cfg = make_cfg()
         cfg = dataclasses.replace(
             cfg, dynamics=dataclasses.replace(cfg.dynamics,
@@ -226,7 +226,7 @@ class TestLqlnr:
     def test_newton_raphson_matches_analytic(self):
         """lqlnr NR iteration (modthermodynamics.f90:449-476) agrees with
         the all-or-nothing closed form away from the saturation boundary."""
-        from udales_tpu.ops.thermo import ql_sat_adjust
+        from udales_jax.ops.thermo import ql_sat_adjust
         rng = np.random.default_rng(7)
         thl = jnp.asarray(285.0 + 10 * rng.random((4, 4, 8)))
         pressure = jnp.full((4, 4, 8), 101325.0)
@@ -245,7 +245,7 @@ class TestLqlnr:
         assert (ql_nr <= ql_an + 1e-12).all()
         assert np.allclose(ql_nr, ql_an, atol=5e-3), np.abs(ql_nr - ql_an).max()
         # just above saturation the two coincide tightly
-        from udales_tpu.config import const
+        from udales_jax.config import const
         es = const.es0 * np.exp(const.at * (np.asarray(thl) - const.tmelt)
                                 / (np.asarray(thl) - const.bt))
         qsat = const.ep * es / (101325.0 - (1.0 - const.ep) * es)

@@ -56,8 +56,8 @@ def _patch_namoptions(text, domain, counts, extra):
 
 
 def _stage_mini(case: str, stl: str, tmp: Path, extra: dict) -> Path:
-    from udales_tpu.grid import Grid
-    from udales_tpu.prep.ibmprep import IBMPreproc
+    from udales_jax.grid import Grid
+    from udales_jax.prep.ibmprep import IBMPreproc
     src = EXAMPLES / case
     dst = tmp / case
     dst.mkdir()
@@ -96,9 +96,9 @@ def driver_pair_dirs(tmp_path_factory):
 class TestDriverPair:
     def test_record_then_replay(self, driver_pair_dirs):
         import jax
-        from udales_tpu.io.driverfiles import read_driver_files
-        from udales_tpu.run import load_case
-        from udales_tpu.sim import Simulation
+        from udales_jax.io.driverfiles import read_driver_files
+        from udales_jax.run import load_case
+        from udales_jax.sim import Simulation
         c949, c950 = driver_pair_dirs
 
         # --- stage 1: precursor records reference-format driver files ----
@@ -117,7 +117,7 @@ class TestDriverPair:
         for p in c949.glob("?driver_*.949"):
             shutil.copy(p, c950 / p.name)
         model2 = load_case(c950, dtype="float64")
-        from udales_tpu.ops import openbc
+        from udales_jax.ops import openbc
         assert model2.inlet is not None
         assert model2.inlet.mode == openbc.BC_DRIVER
         state = model2.cold_start()

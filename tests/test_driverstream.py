@@ -24,7 +24,7 @@ class _FakeState:
 def series_dir(tmp_path_factory):
     """Synthesize a 300-record precursor series, much larger than the
     window (the verdict scenario: driverstore >> chunkread_size)."""
-    from udales_tpu.io.driverfiles import write_driver_files
+    from udales_jax.io.driverfiles import write_driver_files
     out = tmp_path_factory.mktemp("drvstream")
     nt = 300
     rng = np.random.default_rng(7)
@@ -43,7 +43,7 @@ def series_dir(tmp_path_factory):
 
 
 def test_windowed_read_matches_full(series_dir):
-    from udales_tpu.io.driverfiles import read_driver_files
+    from udales_jax.io.driverfiles import read_driver_files
     out, t, planes = series_dir
     full = read_driver_files(out, 777, JT, KT)
     win = read_driver_files(out, 777, JT, KT, start=120, driverstore=40)
@@ -58,9 +58,9 @@ def test_stream_matches_full_series_replay(series_dir):
     Inlet interpolation bit-for-bit, and the device window must never hold
     more than `chunk` records."""
     import jax.numpy as jnp
-    from udales_tpu.io.driverfiles import read_driver_files
-    from udales_tpu.io.driverstream import DriverStream
-    from udales_tpu.ops.openbc import (BC_DRIVER, Inlet,
+    from udales_jax.io.driverfiles import read_driver_files
+    from udales_jax.io.driverstream import DriverStream
+    from udales_jax.ops.openbc import (BC_DRIVER, Inlet,
                                        driver_window_planes)
     out, t, _ = series_dir
     d = read_driver_files(out, 777, JT, KT)
@@ -88,8 +88,8 @@ def test_stream_matches_full_series_replay(series_dir):
 
 def test_stream_clamps_past_series_end(series_dir):
     import jax.numpy as jnp
-    from udales_tpu.io.driverstream import DriverStream
-    from udales_tpu.ops.openbc import driver_window_planes
+    from udales_jax.io.driverstream import DriverStream
+    from udales_jax.ops.openbc import driver_window_planes
     out, t, planes = series_dir
     stream = DriverStream(out, 777, JT, KT, jnp.float64, chunk=32)
     state = stream.ensure(_FakeState(timee=float(t[-1]) + 100.0))

@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from udales_tpu.config import Config, EnergyBalanceConfig, const
-from udales_tpu.ibm.eb import FacetEB, qsat_fn
+from udales_jax.config import Config, EnergyBalanceConfig, const
+from udales_jax.ibm.eb import FacetEB, qsat_fn
 
 CASE = Path("/root/reference/examples/201")
 
@@ -81,9 +81,9 @@ class TestSynthetic:
 @pytest.mark.skipif(not CASE.exists(), reason="reference absent")
 class TestLoad201:
     def test_load(self):
-        from udales_tpu.config import load_namoptions
-        from udales_tpu.grid import Grid
-        from udales_tpu.ibm.ibm import IBM
+        from udales_jax.config import load_namoptions
+        from udales_jax.grid import Grid
+        from udales_jax.ibm.ibm import IBM
         cfg = load_namoptions(CASE / "namoptions.201")
         assert cfg.eb.lEB and cfg.eb.dtEB == 2.0
         d = cfg.domain

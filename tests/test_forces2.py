@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from udales_tpu.config import PhysicsConfig
-from udales_tpu.ops.forces import (fixuinf1, lstend, nudge_top,
+from udales_jax.config import PhysicsConfig
+from udales_jax.ops.forces import (fixuinf1, lstend, nudge_top,
                                    periodic_eb_corr, shifted_pbcs)
 from tests.test_core import make_cfg, make_model, init_state
 
@@ -60,7 +60,7 @@ class TestFixuinf:
                                              tscale=10.0, inletav=1.0),
             bc=dataclasses.replace(cfg.bc, Uinf=0.5))
         model = make_model(cfg)
-        from udales_tpu.state import Ctl
+        from udales_jax.state import Ctl
         z = jnp.zeros((), jnp.float64)
         state = init_state(model, amp=0.0).replace(
             ctl=Ctl(freestreamav=z + 0.5, dgdt=z, dpdx_shift=z))

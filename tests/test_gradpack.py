@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from udales_tpu.grid import Grid
-from udales_tpu.ops import subgrid as sgs
+from udales_jax.grid import Grid
+from udales_jax.ops import subgrid as sgs
 
 
 def _random_ghosted(nx, ny, nz, seed=0, dtype=jnp.float64):
@@ -62,7 +62,7 @@ def test_strain2_pack_matches_direct():
 
 
 def test_closure_pack_matches_direct():
-    from udales_tpu.config import Config
+    from udales_jax.config import Config
     nx, ny, nz = 12, 10, 9
     grid = _grid(nx, ny, nz, stretched=False)
     g = _random_ghosted(nx, ny, nz, seed=3)

@@ -9,8 +9,8 @@ from datetime import datetime, timedelta
 import numpy as np
 import pytest
 
-from udales_tpu.prep import harmonie as hm
-from udales_tpu.prep.weather import (read_weather_table, weather_single_shot,
+from udales_jax.prep import harmonie as hm
+from udales_jax.prep.weather import (read_weather_table, weather_single_shot,
                                      shortwave_from_weather)
 
 LAT, LON, TZ = 48.85, 2.35, 0.0     # Paris-ish (HARMONIE demo domain)

@@ -16,7 +16,7 @@ pytestmark = pytest.mark.skipif(not CASE.exists(), reason="reference absent")
 
 @pytest.fixture(scope="module")
 def model():
-    from udales_tpu.run import load_case
+    from udales_jax.run import load_case
     return load_case(CASE, "101", dtype="float32")
 
 
@@ -86,11 +86,11 @@ class TestReconstruction:
     """Reconstruction-point path (initibmwallfun:384-533, wallfunmom:1352)."""
 
     def _grid(self):
-        from udales_tpu.grid import Grid
+        from udales_jax.grid import Grid
         return Grid.uniform(16, 12, 8, 16.0, 12.0, 8.0, dtype=np.float64)
 
     def test_reconstruction_point_geometry(self):
-        from udales_tpu.ibm.ibm import _reconstruction_data
+        from udales_jax.ibm.ibm import _reconstruction_data
         grid = self._grid()
         ijk = np.array([[5, 5, 2]])
         dist = np.array([0.01])
@@ -108,7 +108,7 @@ class TestReconstruction:
     def test_too_close_skipped_when_lnorec(self):
         """With lnorec the close section is skipped (reference switch)."""
         import dataclasses
-        from udales_tpu.run import load_case
+        from udales_jax.run import load_case
         cfg_mod = load_case(CASE, "101", dtype="float32")
         # 101's asphalt z0=0.05, dist ~0.25 -> log(5)=1.6>1: no rec needed
         for s in cfg_mod.ibm.sec.values():
@@ -118,8 +118,8 @@ class TestReconstruction:
     def test_trilinear_sampling(self):
         """A linear field is reproduced exactly at the reconstruction
         point (trilinear_interp_var:1609)."""
-        from udales_tpu.config import Config, DomainConfig
-        from udales_tpu.ibm.ibm import (IBM, Masks, SecData,
+        from udales_jax.config import Config, DomainConfig
+        from udales_jax.ibm.ibm import (IBM, Masks, SecData,
                                         _reconstruction_data)
         grid = self._grid()
         nx, ny, nz = grid.shape
@@ -145,7 +145,7 @@ class TestReconstruction:
                   facnorm, z0, z0 / 10, np.array([288.0]), np.array([1.0]))
         # linear fields: u = x (on u faces x=i), thl = 300 + z
         import dataclasses as dc
-        from udales_tpu.state import profile_fields
+        from udales_jax.state import profile_fields
         f = profile_fields(grid, np.zeros(nz), np.zeros(nz),
                            np.full(nz, 288.0), np.zeros(nz),
                            np.full(nz, 5e-5))
@@ -168,11 +168,11 @@ class TestWritefac:
     @pytest.fixture(scope="class")
     def model_wf(self):
         import dataclasses
-        from udales_tpu.config import load_namoptions
-        from udales_tpu.grid import Grid
-        from udales_tpu.ibm.ibm import IBM
-        from udales_tpu.io.inputs import CaseInputs
-        from udales_tpu.run import Model
+        from udales_jax.config import load_namoptions
+        from udales_jax.grid import Grid
+        from udales_jax.ibm.ibm import IBM
+        from udales_jax.io.inputs import CaseInputs
+        from udales_jax.run import Model
         cfg = load_namoptions(CASE / "namoptions.101")
         cfg = dataclasses.replace(
             cfg, walls=dataclasses.replace(cfg.walls, lwritefac=True))
@@ -203,12 +203,12 @@ class TestWritefac:
         assert np.abs(tau_x).max() < dt * 10.0
 
         # write + reset via the Simulation writer path
-        from udales_tpu.sim import Simulation
+        from udales_jax.sim import Simulation
         sim = Simulation(model, outdir=tmp_path, monitor=False)
         s2 = sim._write_facstats(s, float(s.timee))
         assert float(np.abs(np.asarray(s2.facstats.tau_x)).max()) == 0.0
         sim.facstatwriter.close()
-        from udales_tpu.post import NCData
+        from udales_jax.post import NCData
         d = NCData(tmp_path / "fac.101.nc")
         assert set(("tau_x", "tau_y", "tau_z", "pres", "htc", "cth",
                     "pres_flc")) <= set(d.variables())
@@ -244,9 +244,9 @@ class TestConservativeIBM:
         return c
 
     def test_conservative_sums_to_zero(self):
-        from udales_tpu.ops.advection import adv_c2
-        from udales_tpu.ops.boundary import make_ghosts
-        from udales_tpu.run import load_case
+        from udales_jax.ops.advection import adv_c2
+        from udales_jax.ops.boundary import make_ghosts
+        from udales_jax.run import load_case
         model = load_case(CASE, "101", dtype="float64")
         grid, cfg, ibm = model.grid, model.cfg, model.ibm
         c = self._fields(model, 7)
@@ -269,7 +269,7 @@ class TestConservativeIBM:
 
     def test_switch_selects_conservative(self):
         import dataclasses
-        from udales_tpu.run import load_case
+        from udales_jax.run import load_case
         m = load_case(CASE, "101", dtype="float32")
         m.cfg = dataclasses.replace(
             m.cfg, physics=dataclasses.replace(
@@ -285,8 +285,8 @@ class TestTauDiagnostics:
 
     def test_taud_and_masks_dump(self, tmp_path):
         import dataclasses
-        from udales_tpu.run import load_case
-        from udales_tpu.sim import Simulation
+        from udales_jax.run import load_case
+        from udales_jax.sim import Simulation
         m = load_case(CASE, "101", dtype="float32")
         m.cfg = dataclasses.replace(
             m.cfg, output=dataclasses.replace(
@@ -303,7 +303,7 @@ class TestTauDiagnostics:
         assert np.abs(tx).max() > 0
         sim.fielddump.dump(st)
         sim.fielddump.close()
-        from udales_tpu.post import NCData
+        from udales_jax.post import NCData
         nc = NCData(tmp_path / "fielddump.101.nc")
         assert "tau_x" in nc.variables() and "mask_u" in nc.variables()
         mu = nc["mask_u"]
@@ -317,7 +317,7 @@ class TestDiffCorrFolding:
     sweep+correction passes exactly (f64) on the real 101 case."""
 
     def _run(self, fold, nsteps=3):
-        from udales_tpu.run import load_case
+        from udales_jax.run import load_case
         m = load_case(CASE, "101", dtype="float64")
         m.ibm.fold_diffcorr = fold
         state = m.cold_start(seed=11)
@@ -339,9 +339,9 @@ class TestDiffCorrFolding:
     def test_masked_sweep_equals_sweep_plus_corr_directly(self):
         """Operator-level check: diff_* with M == diff_* + _diff*_corr
         at fluid points (solid points differ until ibmnorm zeroes them)."""
-        from udales_tpu.ops import subgrid as sg
-        from udales_tpu.ops.boundary import make_ghosts
-        from udales_tpu.run import load_case
+        from udales_jax.ops import subgrid as sg
+        from udales_jax.ops.boundary import make_ghosts
+        from udales_jax.run import load_case
         m = load_case(CASE, "101", dtype="float64")
         ibm, grid, cfg = m.ibm, m.grid, m.cfg
         state = m.cold_start(seed=13)

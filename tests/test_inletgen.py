@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from udales_tpu.config import (BCConfig, Config, DomainConfig, DriverConfig,
+from udales_jax.config import (BCConfig, Config, DomainConfig, DriverConfig,
                                PhysicsConfig, RunConfig, WallsConfig, const)
-from udales_tpu.grid import Grid
-from udales_tpu.ops import inletgen as ig
+from udales_jax.grid import Grid
+from udales_jax.ops import inletgen as ig
 
 
 class TestThickness:
@@ -86,8 +86,8 @@ class TestInterp:
 
 
 def _build_model(nz=32, ltempeq=True):
-    from udales_tpu.ops.openbc import BC_RECYCLE, Inlet
-    from udales_tpu.run import Model
+    from udales_jax.ops.openbc import BC_RECYCLE, Inlet
+    from udales_jax.run import Model
     n = 32
     cfg = Config(
         domain=DomainConfig(itot=n, jtot=n, ktot=nz, xlen=float(n),
@@ -118,16 +118,16 @@ def _build_model(nz=32, ltempeq=True):
 def _start(model, uprof, thlprof, seed=5):
     """Cold start from the inlet profiles (load_case feeds prof.inp; the
     bare Model has no inputs, so build the fields explicitly)."""
-    from udales_tpu.state import initial_state, profile_fields, randomize
+    from udales_jax.state import initial_state, profile_fields, randomize
     grid = model.grid
     nz = grid.ktot
     f = profile_fields(grid, uprof, np.zeros(nz), thlprof, np.zeros(nz),
                        np.full(nz, const.e12min))
     f = randomize(f, jax.random.PRNGKey(seed), 0.05, nz)
-    from udales_tpu.ops.openbc import init_xplanes
+    from udales_jax.ops.openbc import init_xplanes
     f = dataclasses.replace(f, bx=init_xplanes(f, grid))
     st = initial_state(grid, f, dt0=0.02)
-    from udales_tpu.ops.inletgen import init_inletgen
+    from udales_jax.ops.inletgen import init_inletgen
     return st.replace(ig=init_inletgen(model.cfg, grid, f, model.igparams))
 
 

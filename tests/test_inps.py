@@ -14,14 +14,14 @@ pytestmark = pytest.mark.skipif(not REF101.exists(),
 
 @pytest.fixture(scope="module")
 def regen101(tmp_path_factory):
-    from udales_tpu.prep.inps import prepare_from_case
+    from udales_jax.prep.inps import prepare_from_case
     out = tmp_path_factory.mktemp("inps101")
     counts = prepare_from_case(REF101, outdir=out)
     return out, counts
 
 
 def test_inps_parse_101():
-    from udales_tpu.prep.inps import prep_config_from_namoptions
+    from udales_jax.prep.inps import prep_config_from_namoptions
     cfg, stl, extras = prep_config_from_namoptions(REF101 / "namoptions.101")
     assert stl == "geom.101.STL"
     assert (cfg.itot, cfg.jtot, cfg.ktot) == (64, 64, 64)
@@ -78,7 +78,7 @@ def test_patched_namoptions_runs(regen101):
     for k, v in counts.items():
         m = re.search(rf"{k}\s*=\s*(\d+)", text)
         assert m and int(m.group(1)) == v, k
-    from udales_tpu.config import load_namoptions
+    from udales_jax.config import load_namoptions
     cfg = load_namoptions(out / "namoptions.101")
     assert cfg.walls.nfcts == 320
 
@@ -88,10 +88,10 @@ def test_types_file_pathway(tmp_path):
     override the floor/wall heuristic; an authored facets.inp is never
     overwritten (udprep_ibm.py write_facets)."""
     import numpy as np
-    from udales_tpu.prep.prep import (PrepConfig, make_box_stl,
+    from udales_jax.prep.prep import (PrepConfig, make_box_stl,
                                       prepare_case)
     make_box_stl(tmp_path / "g.stl", 4, 8, 4, 8, 6, 16.0, 16.0)
-    from udales_tpu.prep.stl import read_stl
+    from udales_jax.prep.stl import read_stl
     ntri = len(read_stl(tmp_path / "g.stl")[0])
     types = 1 + (np.arange(ntri) % 3)
     np.savetxt(tmp_path / "mytypes.txt", types, fmt="%d",
@@ -115,7 +115,7 @@ def test_lscale_forcing_columns(tmp_path):
     wind under lcoriol, pressure gradient only when nothing else forces
     the flow, subsidence/radiation columns always."""
     import numpy as np
-    from udales_tpu.prep.prep import (PrepConfig, make_box_stl,
+    from udales_jax.prep.prep import (PrepConfig, make_box_stl,
                                       prepare_case)
     make_box_stl(tmp_path / "g.stl", 4, 8, 4, 8, 6, 16.0, 16.0)
     base = dict(itot=16, jtot=16, ktot=16, xlen=16.0, ylen=16.0,
@@ -147,7 +147,7 @@ def test_prof_lapse_rate(tmp_path):
     """thl lapse integrates over half-level spacings
     (udprep_forcing.py:59-65)."""
     import numpy as np
-    from udales_tpu.prep.prep import (PrepConfig, make_box_stl,
+    from udales_jax.prep.prep import (PrepConfig, make_box_stl,
                                       prepare_case)
     make_box_stl(tmp_path / "g.stl", 4, 8, 4, 8, 6, 16.0, 16.0)
     prepare_case(tmp_path / "g.stl", tmp_path, PrepConfig(
@@ -164,9 +164,9 @@ def test_update_prof_from_driver(tmp_path):
     (udprep_forcing.py:155-210); missing output warns and keeps prof."""
     import numpy as np
     import warnings as _w
-    from udales_tpu.io.netcdf import NCWriter
-    from udales_tpu.grid import Grid
-    from udales_tpu.prep.inps import update_prof_from_driver
+    from udales_jax.io.netcdf import NCWriter
+    from udales_jax.grid import Grid
+    from udales_jax.prep.inps import update_prof_from_driver
     nz = 8
     # target case prof
     zf = (np.arange(nz) + 0.5)
@@ -205,8 +205,8 @@ def test_tfacinit_layers_from_fact(tmp_path):
     """write_Tfacinit_layers: last time slice of a previous run's facT.nc,
     both axis layouts (udprep_seb.py write_Tfacinit_layers)."""
     import numpy as np
-    from udales_tpu.io.netcdf import NCWriter
-    from udales_tpu.prep.prep import write_tfacinit_layers
+    from udales_jax.io.netcdf import NCWriter
+    from udales_jax.prep.prep import write_tfacinit_layers
     nfcts, L = 6, 4
     w = NCWriter(tmp_path / "facT.901.nc", nfcts=nfcts, nlayers=L)
     w.define("T", ("facet", "layer"), "K")
@@ -228,7 +228,7 @@ def test_iwallmom_sanity_switch(tmp_path):
     import re
     import shutil
     import warnings as _w
-    from udales_tpu.prep.inps import prepare_from_case
+    from udales_jax.prep.inps import prepare_from_case
     src = REF101
     dst = tmp_path / "case"
     dst.mkdir()
@@ -266,7 +266,7 @@ def _ptset(path):
 
 @pytest.fixture(scope="module")
 def regen949(tmp_path_factory):
-    from udales_tpu.prep.inps import prepare_from_case
+    from udales_jax.prep.inps import prepare_from_case
     out = tmp_path_factory.mktemp("inps949")
     counts = prepare_from_case(REF949, outdir=out)
     return out, counts
@@ -275,7 +275,7 @@ def regen949(tmp_path_factory):
 @pytest.fixture(scope="module")
 def regen950(tmp_path_factory):
     import warnings
-    from udales_tpu.prep.inps import prepare_from_case
+    from udales_jax.prep.inps import prepare_from_case
     out = tmp_path_factory.mktemp("inps950")
     with warnings.catch_warnings():
         # 950 is a driven case; the precursor xytdump is absent here
@@ -286,7 +286,7 @@ def regen950(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def regen201(tmp_path_factory):
-    from udales_tpu.prep.inps import prepare_from_case
+    from udales_jax.prep.inps import prepare_from_case
     out = tmp_path_factory.mktemp("inps201")
     counts = prepare_from_case(REF201, outdir=out)
     return out, counts
@@ -369,7 +369,7 @@ class TestRegen950:
         update_prof_from_driver -> 950 prof columns carry the precursor
         slab profiles (udprep_forcing.py:155-210)."""
         from scipy.io import netcdf_file
-        from udales_tpu.prep.inps import update_prof_from_driver
+        from udales_jax.prep.inps import update_prof_from_driver
         out, _ = regen950
         nz = 128
         prof = tmp_path / "prof.inp.950"

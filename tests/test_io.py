@@ -12,7 +12,7 @@ from tests.test_core import make_cfg, make_model, init_state
 
 class TestNetCDF:
     def test_roundtrip(self, tmp_path):
-        from udales_tpu.io.netcdf import NCWriter
+        from udales_jax.io.netcdf import NCWriter
         from scipy.io import netcdf_file
         model = make_model()
         w = NCWriter(tmp_path / "t.nc", model.grid)
@@ -29,7 +29,7 @@ class TestNetCDF:
 
     def test_fielddump(self, tmp_path):
         import dataclasses
-        from udales_tpu.io.fielddump import FieldDump
+        from udales_jax.io.fielddump import FieldDump
         from scipy.io import netcdf_file
         cfg = make_cfg()
         cfg = dataclasses.replace(cfg, output=dataclasses.replace(
@@ -47,7 +47,7 @@ class TestNetCDF:
 
 class TestStats:
     def test_xyt_accumulation(self, tmp_path):
-        from udales_tpu.io.stats import XYTDump
+        from udales_jax.io.stats import XYTDump
         import dataclasses
         cfg = make_cfg()
         cfg = dataclasses.replace(cfg, output=dataclasses.replace(
@@ -67,18 +67,18 @@ class TestStats:
 
 class TestRestart:
     def test_checkpoint_roundtrip(self, tmp_path):
-        from udales_tpu.io.restart import save_checkpoint, load_checkpoint
+        from udales_jax.io.restart import save_checkpoint, load_checkpoint
         model = make_model()
         state = init_state(model)
-        save_checkpoint(tmp_path / "ck.h5", state)
-        s2 = load_checkpoint(tmp_path / "ck.h5", model.grid)
+        save_checkpoint(tmp_path / "ck.npz", state)
+        s2 = load_checkpoint(tmp_path / "ck.npz", model.grid)
         np.testing.assert_array_equal(np.asarray(s2.c.u),
                                       np.asarray(state.c.u))
         assert float(s2.dt) == float(state.dt)
 
     def test_fortran_restart_synthetic(self, tmp_path):
         """Write a synthetic reference-format initd pair and read it back."""
-        from udales_tpu.io.restart import read_fortran_restart
+        from udales_jax.io.restart import read_fortran_restart
         itot = jtot = 8
         ktot = 4
         npx = npy = 2
@@ -120,7 +120,7 @@ class TestSimulation:
     def test_cli_driver(self, tmp_path):
         """End-to-end: Simulation drives a tiny case with outputs."""
         import dataclasses
-        from udales_tpu.sim import Simulation
+        from udales_jax.sim import Simulation
         cfg = make_cfg()
         cfg = dataclasses.replace(
             cfg,
@@ -136,11 +136,11 @@ class TestSimulation:
         assert float(final.timee) >= 0.3
         assert (tmp_path / "fielddump.000.nc").exists()
         assert (tmp_path / "xytdump.000.nc").exists()
-        assert list(tmp_path.glob("initd*.h5"))
+        assert list(tmp_path.glob("initd*.npz"))
 
     def test_tdump_slices_ytdump(self, tmp_path):
         import dataclasses
-        from udales_tpu.sim import Simulation
+        from udales_jax.sim import Simulation
         from scipy.io import netcdf_file
         cfg = make_cfg()
         cfg = dataclasses.replace(
@@ -168,9 +168,9 @@ class TestSimulation:
         """lmintdump/ltreedump write time-averaged prognostics and
         vegetation tendencies (modstatsdump.f90:341,364)."""
         import dataclasses
-        from udales_tpu.sim import Simulation
-        from udales_tpu.config import TreesConfig
-        from udales_tpu.physics import Vegetation
+        from udales_jax.sim import Simulation
+        from udales_jax.config import TreesConfig
+        from udales_jax.physics import Vegetation
         from scipy.io import netcdf_file
         cfg = make_cfg()
         cfg = dataclasses.replace(
@@ -211,8 +211,8 @@ class TestStatsContinuation:
         import sys
         sys.path.insert(0, str(Path(__file__).parent))
         from test_core import make_cfg, make_model
-        from udales_tpu.run import Model
-        from udales_tpu.sim import Simulation
+        from udales_jax.run import Model
+        from udales_jax.sim import Simulation
         from scipy.io import netcdf_file
 
         def build(outdir):
@@ -238,10 +238,10 @@ class TestStatsContinuation:
         # phase A: ~half the window, then checkpoint with live accumulators
         stA = sim2.run(st2, runtime=0.08)
         sim2._write_restart(stA)
-        ck = sorted(d2.glob("initd*.h5"))[-1]
+        ck = sorted(d2.glob("initd*.npz"))[-1]
         # phase B: fresh Simulation resumes the accumulators
         sim3 = build(d2)
-        from udales_tpu.io.restart import load_checkpoint
+        from udales_jax.io.restart import load_checkpoint
         stB = load_checkpoint(ck, sim3.model.grid, model=sim3.model)
         sim3.resume_stats(ck)
         assert float(np.asarray(sim3.xytdump.acc.n)) > 0

@@ -26,7 +26,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 import numpy as np
-from udales_tpu.parallel.multihost import (init_distributed, global_mesh,
+from udales_jax.parallel.multihost import (init_distributed, global_mesh,
                                            shard_state_global)
 
 idx, cnt = init_distributed(f"localhost:{{port}}", 2, pid)
@@ -35,9 +35,9 @@ assert len(jax.devices()) == 4, jax.devices()
 mesh = global_mesh()
 assert mesh.devices.shape == (2, 2), mesh.devices.shape
 
-from __graft_entry__ import _build, _init_state
-model = _build(16, 16, 16, dtype="float64", ladaptive=False)
-state = _init_state(model)                       # identical on both ranks
+from udales_jax.cases import flat_model, flat_state
+model = flat_model(16, 16, 16, dtype="float64", ladaptive=False)
+state = flat_state(model)                        # identical on both ranks
 ref = jax.jit(model.step)(state)                 # single-device oracle
 
 model.mesh = mesh

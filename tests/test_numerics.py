@@ -35,13 +35,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from udales_tpu.config import (Config, DomainConfig, PhysicsConfig, RunConfig,
+from udales_jax.config import (Config, DomainConfig, PhysicsConfig, RunConfig,
                                SubgridConfig, SGS_SMAGORINSKY, SGS_VREMAN,
                                const)
-from udales_tpu.grid import Grid
-from udales_tpu.ops import advection as adv
-from udales_tpu.ops import subgrid as sg
-from udales_tpu.ops.advection import _rlim
+from udales_jax.grid import Grid
+from udales_jax.ops import advection as adv
+from udales_jax.ops import subgrid as sg
+from udales_jax.ops.advection import _rlim
 
 # ---------------------------------------------------------------------------
 # analytic-field helpers

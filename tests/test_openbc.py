@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from udales_tpu.config import (BCConfig, Config, DomainConfig, RunConfig,
+from udales_jax.config import (BCConfig, Config, DomainConfig, RunConfig,
                                PhysicsConfig, WallsConfig, BC_PROFILE,
                                BC_DRIVER, BC_PERIODIC)
-from udales_tpu.grid import Grid
-from udales_tpu.run import Model
-from udales_tpu.ops.openbc import Inlet, init_xplanes
-from udales_tpu.state import initial_state, profile_fields, randomize
+from udales_jax.grid import Grid
+from udales_jax.run import Model
+from udales_jax.ops.openbc import Inlet, init_xplanes
+from udales_jax.state import initial_state, profile_fields, randomize
 
 
 def make_open_model(nx=16, ny=12, nz=8, u0=1.0):
@@ -101,8 +101,8 @@ class TestDriverReplay:
     def test_record_then_replay(self, tmp_path):
         """Record planes from a periodic run, replay them as inlet: the
         replayed inlet must equal the recorded planes (time-interpolated)."""
-        from udales_tpu.sim import DriverRecorder
-        from udales_tpu.ops.openbc import load_driver_inlet
+        from udales_jax.sim import DriverRecorder
+        from udales_jax.ops.openbc import load_driver_inlet
         from tests.test_core import make_cfg, make_model, init_state
 
         # precursor: tiny periodic run, record every step
@@ -132,8 +132,8 @@ class TestDriverReplay:
 
     def test_driver_inlet_run(self, tmp_path):
         """Drive an open-x run from recorded planes; inlet must follow."""
-        from udales_tpu.sim import DriverRecorder
-        from udales_tpu.ops.openbc import load_driver_inlet
+        from udales_jax.sim import DriverRecorder
+        from udales_jax.ops.openbc import load_driver_inlet
         from tests.test_core import make_cfg, make_model, init_state
 
         cfg = make_cfg()
@@ -170,7 +170,7 @@ class TestDriverReplay:
 class TestRecycleInlet:
     def test_recycle_rescale(self):
         """Recycle inlet: inlet mean equals target, fluctuations recycled."""
-        from udales_tpu.ops.openbc import BC_RECYCLE, Inlet
+        from udales_jax.ops.openbc import BC_RECYCLE, Inlet
         model = make_open_model()
         nz = model.grid.ktot
         j = jnp.asarray
@@ -218,7 +218,7 @@ def make_open_y_model(nx=12, ny=16, nz=8, v0=1.0):
 
 
 def open_y_state(model, amp=0.02, seed=2):
-    from udales_tpu.ops.openbc import init_yplanes
+    from udales_jax.ops.openbc import init_yplanes
     nz = model.grid.ktot
     f = profile_fields(model.grid, np.zeros(nz), np.full(nz, 1.0),
                        np.full(nz, 288.0), np.zeros(nz), np.full(nz, 5e-5))

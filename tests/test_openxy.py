@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from udales_tpu.config import (BC_PROFILE, BCConfig, Config, DomainConfig,
+from udales_jax.config import (BC_PROFILE, BCConfig, Config, DomainConfig,
                                RunConfig)
-from udales_tpu.grid import Grid
-from udales_tpu.ops.openbc import BC_PROFILE as _BCP, Inlet
-from udales_tpu.run import Model
-from udales_tpu.state import initial_state, profile_fields, randomize
+from udales_jax.grid import Grid
+from udales_jax.ops.openbc import BC_PROFILE as _BCP, Inlet
+from udales_jax.run import Model
+from udales_jax.state import initial_state, profile_fields, randomize
 
 
 def _build(n=16):
@@ -41,7 +41,7 @@ def _build(n=16):
                        np.full(nz, 290.0), np.zeros(nz),
                        np.full(nz, 1e-3))
     f = randomize(f, jax.random.PRNGKey(3), 0.02, nz)
-    from udales_tpu.ops.openbc import init_xplanes, init_yplanes
+    from udales_jax.ops.openbc import init_xplanes, init_yplanes
     f = dataclasses.replace(f, bx=init_xplanes(f, grid),
                             by=init_yplanes(f, grid))
     return model, initial_state(grid, f, dt0=0.02)
@@ -92,7 +92,7 @@ def test_open_xy_divergence_free():
 def test_open_xy_ghost_corners():
     """Ghost assembly: the x planes attach first, the y planes fill the
     corners (the reference's xm-then-ym ordering)."""
-    from udales_tpu.ops.boundary import _assemble_xy
+    from udales_jax.ops.boundary import _assemble_xy
     nx = ny = 4
     gk = jnp.zeros((nx, ny, 3))
     xlo = jnp.full((ny, 3), 1.0)

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from udales_tpu.config import (ChemistryConfig, Config, HeatpumpConfig,
+from udales_jax.config import (ChemistryConfig, Config, HeatpumpConfig,
                                PurifsConfig, ScalarsConfig, TreesConfig,
                                const)
-from udales_tpu.physics import (HeatPumps, Purifier, Purifiers,
+from udales_jax.physics import (HeatPumps, Purifier, Purifiers,
                                 ScalarSources, Vegetation, chem_update)
 from tests.test_core import make_cfg, make_model, init_state
 
@@ -88,7 +88,7 @@ class TestVegetation:
         model = make_model(cfg)
         model.vegetation = self._veg(model)
         nz = model.grid.ktot
-        from udales_tpu.state import profile_fields, initial_state
+        from udales_jax.state import profile_fields, initial_state
         f = profile_fields(model.grid, np.full(nz, 1.0), np.zeros(nz),
                            np.full(nz, 288.0), np.zeros(nz),
                            np.full(nz, 5e-5),
@@ -128,7 +128,7 @@ class TestPurifier:
         model.purifiers = Purifiers(cfg, model.grid,
                                     [Purifier(6, 7, 5, 6, 2, 3, 1)])
         nz = model.grid.ktot
-        from udales_tpu.state import profile_fields, initial_state
+        from udales_jax.state import profile_fields, initial_state
         f = profile_fields(model.grid, np.full(nz, 1.0), np.zeros(nz),
                            np.full(nz, 288.0), np.zeros(nz),
                            np.full(nz, 5e-5), svprof=np.ones((1, nz)))

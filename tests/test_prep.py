@@ -7,12 +7,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from udales_tpu.grid import Grid
-from udales_tpu.prep.stl import read_stl, write_stl, triangle_areas
-from udales_tpu.prep.ibmprep import IBMPreproc
-from udales_tpu.prep.radiation import (direct_shortwave, solar_direction,
+from udales_jax.grid import Grid
+from udales_jax.prep.stl import read_stl, write_stl, triangle_areas
+from udales_jax.prep.ibmprep import IBMPreproc
+from udales_jax.prep.radiation import (direct_shortwave, solar_direction,
                                        view_factors)
-from udales_tpu.prep.prep import PrepConfig, make_box_stl, prepare_case
+from udales_jax.prep.prep import PrepConfig, make_box_stl, prepare_case
 
 REF001 = Path("/root/reference/examples/001")
 
@@ -52,7 +52,7 @@ class TestMasking:
     @pytest.mark.skipif(not REF001.exists(), reason="reference absent")
     def test_001_parity_subset(self):
         """Full-resolution parity for solid_w on example 001."""
-        from udales_tpu.io.inputs import read_sparse_ijk
+        from udales_jax.io.inputs import read_sparse_ijk
         grid = Grid.uniform(128, 128, 128, 64.0, 64.0, 64.0,
                             dtype=np.float64)
         pp = IBMPreproc.from_stl(REF001 / "flat_ground.stl", grid)
@@ -84,7 +84,7 @@ class TestViewFactors:
         # the analytic contour method must hit the value to quadrature
         # precision (<1e-6), including the quad-average of the
         # shared-edge perpendicular case (Howell C-14: 0.20004)
-        from udales_tpu.prep.radiation import view_factors_exact
+        from udales_jax.prep.radiation import view_factors_exact
         Fe, _ = view_factors_exact(tris, normals, occlusion=False)
         assert abs(Fe[0, 2] + Fe[0, 3] - 0.199825) < 1e-5
         sq3 = np.array([[[0, 0, 0], [1, 0, 0], [1, 0, 1]],
@@ -100,7 +100,7 @@ class TestViewFactors:
 
     def test_enclosure_bound(self):
         tris = make_box_stl("/tmp/_box2.stl", 2, 6, 2, 6, 4, 8.0, 8.0)
-        from udales_tpu.prep.stl import read_stl
+        from udales_jax.prep.stl import read_stl
         t, n = read_stl("/tmp/_box2.stl")
         F, svf = view_factors(t, n, subdiv=1)
         assert (F.sum(axis=1) + svf <= 1.0 + 1e-9).all()
@@ -181,7 +181,7 @@ z0 = 0.05
 z0h = 0.00035
 /
 """)
-        from udales_tpu.run import load_case
+        from udales_jax.run import load_case
         model = load_case(tmp_path, "901", dtype="float64")
         assert model.ibm is not None
         state = model.cold_start(seed=1)

@@ -4,9 +4,9 @@ import shutil
 import numpy as np
 import pytest
 
-from udales_tpu.grid import Grid
-from udales_tpu.prep.ibmprep import IBMPreproc
-from udales_tpu.prep.prep import make_box_stl
+from udales_jax.grid import Grid
+from udales_jax.prep.ibmprep import IBMPreproc
+from udales_jax.prep.prep import make_box_stl
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="no g++")
@@ -20,7 +20,7 @@ def stl(tmp_path_factory):
 
 
 def test_native_builds():
-    from udales_tpu.prep.native import get_lib
+    from udales_jax.prep.native import get_lib
     assert get_lib() is not None
 
 
@@ -70,11 +70,11 @@ class TestNativeRadiation:
 
     @pytest.fixture(scope="class")
     def geom(self, stl):
-        from udales_tpu.prep.stl import read_stl
+        from udales_jax.prep.stl import read_stl
         return read_stl(stl)
 
     def test_view_factors_match(self, geom):
-        from udales_tpu.prep import native, radiation
+        from udales_jax.prep import native, radiation
         tris, normals = geom
         Fn, svfn = native.view_factors(tris, normals, subdiv=1)
         Fp, svfp = radiation.view_factors(tris, normals, subdiv=1)
@@ -84,7 +84,7 @@ class TestNativeRadiation:
         assert (Fn.sum(axis=1) <= 1.0 + 1e-12).all()
 
     def test_view_factors_no_occlusion(self, geom):
-        from udales_tpu.prep import native, radiation
+        from udales_jax.prep import native, radiation
         tris, normals = geom
         Fn, _ = native.view_factors(tris, normals, subdiv=1,
                                     occlusion=False)
@@ -93,7 +93,7 @@ class TestNativeRadiation:
         assert np.abs(Fn - Fp).max() < 1e-10
 
     def test_direct_shortwave_match(self, geom):
-        from udales_tpu.prep import native, radiation
+        from udales_jax.prep import native, radiation
         tris, normals = geom
         sun = radiation.solar_direction(35.0, 160.0)
         Sn = native.direct_shortwave(tris, normals, sun, 800.0)

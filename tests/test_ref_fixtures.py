@@ -40,9 +40,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from udales_tpu.grid import Grid
-from udales_tpu.io.inputs import read_facet_sections, read_sparse_ijk
-from udales_tpu.prep.ibmprep import IBMPreproc
+from udales_jax.grid import Grid
+from udales_jax.io.inputs import read_facet_sections, read_sparse_ijk
+from udales_jax.prep.ibmprep import IBMPreproc
 
 REF = Path("/root/reference")
 pytestmark = pytest.mark.skipif(not REF.exists(),
@@ -130,8 +130,8 @@ class TestPrepParity:
 class TestShortwave525:
     def test_veg_attenuated_sdir(self):
         import math
-        from udales_tpu.prep.radiation import direct_shortwave_veg
-        from udales_tpu.prep.stl import read_stl
+        from udales_jax.prep.radiation import direct_shortwave_veg
+        from udales_jax.prep.stl import read_stl
         case = REF / "tests/cases/525"
         tris, nrm = read_stl(case / "tree_ground.stl")
         ref = np.loadtxt(case / "Sdir.txt")
@@ -161,9 +161,9 @@ class TestShortwave525:
 class TestViewFactors201:
     def test_vf_svf_parity(self):
         from scipy.io import netcdf_file
-        from udales_tpu.prep.stl import read_stl
+        from udales_jax.prep.stl import read_stl
         try:
-            from udales_tpu.prep import native
+            from udales_jax.prep import native
             native.get_radiation_lib()
         except Exception:
             pytest.skip("native radiation kernel unavailable")
@@ -172,7 +172,7 @@ class TestViewFactors201:
         with netcdf_file(str(case / "vf.nc.inp.201"), "r", mmap=False) as f:
             VF = f.variables["view factor"][:].astype(np.float64)
         svf_ref = np.loadtxt(case / "svf.inp.201", skiprows=1)
-        from udales_tpu.prep.radiation import view_factors_hybrid
+        from udales_jax.prep.radiation import view_factors_hybrid
         F, svf = view_factors_hybrid(tris, nrm, subdiv=1)
         # sky view factors: full-set agreement (hybrid contour+patch;
         # measured mean |d| 0.0096 vs the View3D fixture)
@@ -195,7 +195,7 @@ class TestUDPostMatlab:
 
     @pytest.mark.parametrize("case", ["064", "101"])
     def test_facsec_c(self, case):
-        from udales_tpu.post import UDPost
+        from udales_jax.post import UDPost
         ref = json.loads((self.DATA / f"{case}.json").read_text())["facsec_c"]
         p = UDPost(case, REF / "tests/cases" / case)
         fs = p.facsec["c"]
@@ -210,7 +210,7 @@ class TestUDPostMatlab:
 
     @pytest.mark.parametrize("case", ["064", "101"])
     def test_frontal_properties(self, case):
-        from udales_tpu.post import UDPost
+        from udales_jax.post import UDPost
         ref = json.loads((self.DATA / f"{case}.json").read_text())["frontal"]
         p = UDPost(case, REF / "tests/cases" / case)
         fr = p.calculate_frontal_properties()

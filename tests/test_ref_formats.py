@@ -8,8 +8,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from udales_tpu.io.driverfiles import read_driver_files, write_driver_files
-from udales_tpu.io.restart import (_read_records, read_fortran_restart,
+from udales_jax.io.driverfiles import read_driver_files, write_driver_files
+from udales_jax.io.restart import (_read_records, read_fortran_restart,
                                    write_fortran_restart)
 
 REF = Path("/root/reference")

@@ -11,8 +11,8 @@ pytestmark = pytest.mark.skipif(not CASE.exists(), reason="reference absent")
 
 @pytest.mark.parametrize("rm", [1003, 1004, 1005])
 def test_runmode(rm):
-    from udales_tpu.run import load_case
-    from udales_tpu.sim import execute_runmode_actions
+    from udales_jax.run import load_case
+    from udales_jax.sim import execute_runmode_actions
     m = load_case(CASE, "101")
     m.cfg = dataclasses.replace(
         m.cfg, run=dataclasses.replace(m.cfg.run, runmode=rm))
@@ -20,7 +20,7 @@ def test_runmode(rm):
 
 
 def test_normal_runmode_returns_none():
-    from udales_tpu.run import load_case
-    from udales_tpu.sim import execute_runmode_actions
+    from udales_jax.run import load_case
+    from udales_jax.sim import execute_runmode_actions
     m = load_case(CASE, "101")
     assert execute_runmode_actions(m, CASE) is None

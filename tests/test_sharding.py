@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from udales_tpu.parallel.mesh import make_mesh, shard_state
+from udales_jax.parallel.mesh import make_mesh, shard_state
 from tests.test_core import make_cfg, make_model, init_state
 
 
@@ -56,7 +56,7 @@ def test_multistep_sharding_invariance():
 def test_multihost_helpers_single_process():
     """init_distributed is a no-op single-process; global_mesh factors the
     virtual 8-device pool into the expected 2-D mesh."""
-    from udales_tpu.parallel.multihost import global_mesh, init_distributed
+    from udales_jax.parallel.multihost import global_mesh, init_distributed
     pid, n = init_distributed()
     assert pid == 0 and n >= 1
     mesh = global_mesh()

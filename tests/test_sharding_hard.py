@@ -16,9 +16,9 @@ import jax
 import numpy as np
 import pytest
 
-from udales_tpu.parallel.mesh import make_mesh, shard_state
-from udales_tpu.prep.prep import PrepConfig, prepare_case
-from udales_tpu.prep.prep import make_box_stl
+from udales_jax.parallel.mesh import make_mesh, shard_state
+from udales_jax.prep.prep import PrepConfig, prepare_case
+from udales_jax.prep.prep import make_box_stl
 
 
 NAM_TEMPLATE = """
@@ -71,7 +71,7 @@ def _stage_cube_case(tmp, bc_extra="", extra="", with_radiation=True):
 
 
 def _load(case_dir):
-    from udales_tpu.run import load_case
+    from udales_jax.run import load_case
     return load_case(case_dir, "901", dtype="float64")
 
 
@@ -184,14 +184,14 @@ class TestInletGenSharding:
         Utav P('x',None)) under a mesh — programmatic model build, f64
         (the pattern of test_inletgen._build_model)."""
         import jax.numpy as jnp
-        from udales_tpu.config import (BCConfig, Config, DomainConfig,
+        from udales_jax.config import (BCConfig, Config, DomainConfig,
                                        DriverConfig, PhysicsConfig,
                                        RunConfig, const)
-        from udales_tpu.grid import Grid
-        from udales_tpu.ops import inletgen as ig
-        from udales_tpu.ops.openbc import BC_RECYCLE, Inlet, init_xplanes
-        from udales_tpu.run import Model
-        from udales_tpu.state import (initial_state, profile_fields,
+        from udales_jax.grid import Grid
+        from udales_jax.ops import inletgen as ig
+        from udales_jax.ops.openbc import BC_RECYCLE, Inlet, init_xplanes
+        from udales_jax.run import Model
+        from udales_jax.state import (initial_state, profile_fields,
                                       randomize)
 
         n, nz = 16, 16

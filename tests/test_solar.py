@@ -14,7 +14,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from udales_tpu.prep.solar import (net_shortwave_reflected,
+from udales_jax.prep.solar import (net_shortwave_reflected,
                                    nsun_from_angles, solar_position,
                                    solar_state, solar_strength_ashrae)
 
@@ -122,8 +122,8 @@ class TestNetShortwave:
         the fixture — see test_ref_fixtures docstring)."""
         if not REF_TOOLS.exists():
             pytest.skip("reference absent")
-        from udales_tpu.prep.solar import generate_shortwave
-        from udales_tpu.prep.stl import read_stl
+        from udales_jax.prep.solar import generate_shortwave
+        from udales_jax.prep.stl import read_stl
         base = Path("/root/reference/examples/201")
         tris, nrm = read_stl(base / "geom.201.STL")
         svf = np.loadtxt(base / "svf.inp.201", skiprows=1)
@@ -152,7 +152,7 @@ class TestTimedepSW:
         before sunrise, peak near solar noon) and the written file loads
         through the solver's Timedep reader."""
         from datetime import datetime
-        from udales_tpu.prep.solar import generate_timedepsw
+        from udales_jax.prep.solar import generate_timedepsw
         # a single roof facet (two triangles)
         tris = np.array([[[0, 0, 5], [4, 0, 5], [4, 4, 5]],
                          [[0, 0, 5], [4, 4, 5], [0, 4, 5]]], float)
@@ -171,8 +171,8 @@ class TestTimedepSW:
         assert tab.max() > 400.0
         # reader round trip
         import dataclasses
-        from udales_tpu.config import Config, PhysicsConfig
-        from udales_tpu.timedep import Timedep
+        from udales_jax.config import Config, PhysicsConfig
+        from udales_jax.timedep import Timedep
         cfg = Config(physics=PhysicsConfig(ltimedepsw=True))
         td = Timedep.load(tmp_path, "903", cfg, 8, dtype=np.float64)
         assert td is not None

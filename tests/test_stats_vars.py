@@ -14,7 +14,7 @@ import jax
 import numpy as np
 import pytest
 
-from udales_tpu.io.stats import TDump, XYDump, XYTDump, YDump, YTDump
+from udales_jax.io.stats import TDump, XYDump, XYTDump, YDump, YTDump
 
 REF_SRC = Path("/root/reference/src/modstatsdump.f90")
 
@@ -124,7 +124,7 @@ class TestVariableSupersets:
     def test_tkedump(self, tmp_path, model_state):
         """ltkedump now carries the reference's ncstattke names
         (modstatsdump.f90:396-404) alongside the descriptive ones."""
-        from udales_tpu.io.stats import TKEDump
+        from udales_jax.io.stats import TKEDump
         model, state = model_state
         d = TKEDump(model.cfg, model.grid, tmp_path, model=model)
         d.tnext_sample = 0.0
@@ -149,7 +149,7 @@ class TestVariableSupersets:
         """k/i/j slice families must carry the reference names
         (ncinfo tables at modstatsdump.f90:424-484)."""
         import dataclasses
-        from udales_tpu.io.stats import SliceDump
+        from udales_jax.io.stats import SliceDump
         model, state = model_state
         cfg = dataclasses.replace(
             model.cfg, output=dataclasses.replace(
@@ -202,7 +202,7 @@ class TestFacetFileNames:
 
     def test_names_in_sim_writers(self):
         sim_src = (Path(__file__).parents[1]
-                   / "udales_tpu/sim.py").read_text()
+                   / "udales_jax/sim.py").read_text()
         for src, table in (("/root/reference/src/modibm.f90", "ncstatfac"),
                            ("/root/reference/src/modEB.f90", "ncstatT"),
                            ("/root/reference/src/modEB.f90", "ncstatEB")):

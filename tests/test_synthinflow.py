@@ -3,8 +3,8 @@ solver ingestion."""
 import numpy as np
 import jax
 
-from udales_tpu.prep.syntheticinflow import generate_synthetic_inflow
-from udales_tpu.ops.openbc import load_driver_inlet
+from udales_jax.prep.syntheticinflow import generate_synthetic_inflow
+from udales_jax.ops.openbc import load_driver_inlet
 
 
 def test_stress_targets(tmp_path):
@@ -14,15 +14,14 @@ def test_stress_targets(tmp_path):
     uu = np.full(nz, 0.04)
     ww = np.full(nz, 0.02)
     uw = np.full(nz, -0.01)
-    path = tmp_path / "driverdata.900.h5"
+    path = tmp_path / "driverdata.900.npz"
     generate_synthetic_inflow(path, ny, nz, 0.5, dzf, t_end=60.0, dt=0.25,
                               u_mean=u_mean, uu=uu, vv=uu, ww=ww, uw=uw,
                               Ly=1.0, Lz=1.0, Tscale=1.5, seed=3)
-    import h5py
-    with h5py.File(path) as f:
-        U = f["u"][()]
-        W = f["w"][()][:, :, :nz]
-        t = f["t"][()]
+    with np.load(path) as f:
+        U = f["u"]
+        W = f["w"][:, :, :nz]
+        t = f["t"]
     assert len(t) == 241
     up = U - U.mean(axis=0)
     wp = W - W.mean(axis=0)
@@ -44,10 +43,10 @@ def test_solver_ingestion(tmp_path):
     import dataclasses
     import jax.numpy as jnp
     from tests.test_openbc import make_open_model, open_state
-    from udales_tpu.config import BC_DRIVER
+    from udales_jax.config import BC_DRIVER
     ny, nz = 12, 8
     generate_synthetic_inflow(
-        tmp_path / "driverdata.900.h5", ny, nz, 1.0, np.ones(nz),
+        tmp_path / "driverdata.900.npz", ny, nz, 1.0, np.ones(nz),
         t_end=2.0, dt=0.1, u_mean=np.full(nz, 1.0),
         uu=np.full(nz, 0.01), vv=np.full(nz, 0.01), ww=np.full(nz, 0.005),
         uw=np.full(nz, -0.002), Tscale=0.5,
@@ -57,7 +56,7 @@ def test_solver_ingestion(tmp_path):
         model.cfg, bc=dataclasses.replace(model.cfg.bc, BCxm=BC_DRIVER,
                                           BCxT=BC_DRIVER, BCxq=BC_DRIVER,
                                           BCxs=BC_DRIVER))
-    model.inlet = load_driver_inlet(tmp_path / "driverdata.900.h5",
+    model.inlet = load_driver_inlet(tmp_path / "driverdata.900.npz",
                                     np.float64)
     s = open_state(model, amp=0.0)
     step = jax.jit(model.step)
@@ -82,7 +81,7 @@ def test_temperature_scalar_planes(tmp_path):
     sv_mean = np.stack([np.full(nz, 5.0)])
     ss = np.stack([np.full(nz, 0.25)])
     fdir = tmp_path / "fortran"
-    path = tmp_path / "driverdata.901.h5"
+    path = tmp_path / "driverdata.901.npz"
     generate_synthetic_inflow(
         path, ny, nz, 0.5, dzf, t_end=120.0, dt=0.25,
         u_mean=u_mean, uu=np.full(nz, 0.04), vv=np.full(nz, 0.04),
@@ -90,11 +89,10 @@ def test_temperature_scalar_planes(tmp_path):
         thl_mean=thl_mean, tt=tt, wth=wth,
         sv_mean=sv_mean, ss=ss,
         fortran_dir=fdir, expnr="901", seed=7)
-    import h5py
-    with h5py.File(path) as f:
-        TH = f["thl"][()]
-        W = f["w"][()][:, :, :nz]
-        SV = f["sv"][()]
+    with np.load(path) as f:
+        TH = f["thl"]
+        W = f["w"][:, :, :nz]
+        SV = f["sv"]
     thp = TH - TH.mean(axis=0)
     wp = W - W.mean(axis=0)
     # variance within 40% of target, flux right sign and order
@@ -105,7 +103,7 @@ def test_temperature_scalar_planes(tmp_path):
     assert abs((svp ** 2).mean() / ss.mean() - 1.0) < 0.4
     assert np.allclose(TH.mean(axis=(0, 1)), thl_mean, atol=0.2)
     # Fortran set readable through the reference-format reader
-    from udales_tpu.io.driverfiles import read_driver_files
+    from udales_jax.io.driverfiles import read_driver_files
     d = read_driver_files(fdir, 901, ny, nz, nsv=1)
     assert d["u"].shape[0] == len(d["t"])
     np.testing.assert_allclose(d["thl"][0], TH[0], atol=1e-6)

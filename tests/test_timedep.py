@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from udales_tpu.config import Config
-from udales_tpu.timedep import Timedep, _lerp_series
+from udales_jax.config import Config
+from udales_jax.timedep import Timedep, _lerp_series
 
 
 def _cfg(**flags):

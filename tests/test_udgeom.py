@@ -6,9 +6,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from udales_tpu.prep.prep import make_box_stl
-from udales_tpu.prep.stl import read_stl
-from udales_tpu.prep.udgeom import UDGeom
+from udales_jax.prep.prep import make_box_stl
+from udales_jax.prep.stl import read_stl
+from udales_jax.prep.udgeom import UDGeom
 
 
 def box(tmp, name, x0, x1, y0, y1, z1, xlen=32.0, ylen=32.0):
@@ -115,7 +115,7 @@ class TestGeneration:
 # check(): mesh diagnostics (tools/python/udgeom/check_mesh.py vocabulary)
 # ---------------------------------------------------------------------------
 
-from udales_tpu.prep.udgeom import (check, create_canyons, create_cubes,
+from udales_jax.prep.udgeom import (check, create_canyons, create_cubes,
                                     create_flat_surface,
                                     calculate_independent_surfaces,
                                     find_nonmanifold_regions,
@@ -336,7 +336,7 @@ class TestGenerators:
     def test_matches_bench_footprints(self):
         """create_cubes('AC') reproduces the bench urban geometry
         (make_box_array_stl 4x4 frac=0.5): identical building boxes."""
-        from udales_tpu.prep.prep import make_box_array_stl
+        from udales_jax.prep.prep import make_box_array_stl
         import tempfile, os
         with tempfile.TemporaryDirectory() as d:
             arr = make_box_array_stl(os.path.join(d, "a.stl"),

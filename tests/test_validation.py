@@ -29,12 +29,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from udales_tpu.config import (BCConfig, Config, DomainConfig, PhysicsConfig,
+from udales_jax.config import (BCConfig, Config, DomainConfig, PhysicsConfig,
                                RunConfig, SubgridConfig, WallsConfig, SGS_DNS,
                                const)
-from udales_tpu.grid import Grid
-from udales_tpu.run import Model
-from udales_tpu.state import initial_state, zero_fields
+from udales_jax.grid import Grid
+from udales_jax.run import Model
+from udales_jax.state import initial_state, zero_fields
 
 U0 = 0.01
 LXY = 0.1

@@ -9,7 +9,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from udales_tpu.prep.vegetation import (VegParams, compute_sveg, stl_to_veg,
+from udales_jax.prep.vegetation import (VegParams, compute_sveg, stl_to_veg,
                                         trees_to_veg, write_veg_files)
 
 REF525 = Path("/root/reference/tests/cases/525")
@@ -31,7 +31,7 @@ class TestTreesBlockParity:
         pts, ids = trees_to_veg(REF525 / "trees.inp.525", 512, 256, 64)
         n = write_veg_files(tmp_path, "525", pts, ids, VegParams())
         assert n == 26325
-        from udales_tpu.io.inputs import read_sparse_ijk
+        from udales_jax.io.inputs import read_sparse_ijk
         back = read_sparse_ijk(tmp_path / "veg.inp.525")
         assert set(map(tuple, back + 1)) == set(map(tuple, pts))
         par = np.loadtxt(tmp_path / "veg_params.inp.525", skiprows=1)
@@ -41,8 +41,8 @@ class TestTreesBlockParity:
 
 class TestSTLVoxelize:
     def test_box_crown(self, tmp_path):
-        from udales_tpu.grid import Grid
-        from udales_tpu.prep.prep import make_box_stl
+        from udales_jax.grid import Grid
+        from udales_jax.prep.prep import make_box_stl
         stl = tmp_path / "crown.stl"
         # closed box 4..8 x 4..8 x 0..4 (floor=False keeps it one solid;
         # bottom open -> extrude closes it)

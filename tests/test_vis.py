@@ -19,7 +19,7 @@ pytestmark = pytest.mark.skipif(not CASE.exists(), reason="reference absent")
 
 @pytest.fixture(scope="module")
 def post():
-    from udales_tpu.post import UDPost
+    from udales_jax.post import UDPost
     return UDPost("101", CASE)
 
 
@@ -118,7 +118,7 @@ class TestPlotlyBackend:
         return calls
 
     def _scene(self):
-        from udales_tpu.vis import (LineSet, MeshPrimitive, PointSet,
+        from udales_jax.vis import (LineSet, MeshPrimitive, PointSet,
                                     Scene)
         verts = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
                           [0, 0, 1]], float)
@@ -132,7 +132,7 @@ class TestPlotlyBackend:
         return sc
 
     def test_traces_built(self, monkeypatch):
-        from udales_tpu.vis import render_scene
+        from udales_jax.vis import render_scene
         calls = self._stub(monkeypatch)
         fig = render_scene(self._scene(), backend="plotly")
         kinds = [k for k, _ in calls["traces"]]
@@ -150,7 +150,7 @@ class TestPlotlyBackend:
     def test_missing_plotly_raises_import_error(self, monkeypatch):
         import builtins
         import sys
-        from udales_tpu.vis import render_scene
+        from udales_jax.vis import render_scene
         monkeypatch.setitem(sys.modules, "plotly", None)
         real_import = builtins.__import__
 

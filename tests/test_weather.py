@@ -5,9 +5,9 @@ from datetime import datetime
 import numpy as np
 import pytest
 
-from udales_tpu.prep.prep import make_box_stl
-from udales_tpu.prep.stl import read_stl
-from udales_tpu.prep.weather import (generate_timedepsw_weather,
+from udales_jax.prep.prep import make_box_stl
+from udales_jax.prep.stl import read_stl
+from udales_jax.prep.weather import (generate_timedepsw_weather,
                                      read_weather_table,
                                      shortwave_from_weather,
                                      weather_day_series, weather_single_shot)

@@ -3,7 +3,7 @@ tools/python/udprep/udprep_grid.py:61-290)."""
 import numpy as np
 import pytest
 
-from udales_tpu.prep.zgrid import zgrid_centers, zgrid_faces
+from udales_jax.prep.zgrid import zgrid_centers, zgrid_faces
 
 
 def _check_basic(zh, ktot, zsize, hlin, dzlin):
@@ -74,8 +74,8 @@ def test_too_shallow_raises():
 def test_prepare_case_stretched(tmp_path):
     """prepare_case writes a stretched prof.inp whose z column matches the
     generator, and the case loads through from_prof_inp."""
-    from udales_tpu.grid import Grid
-    from udales_tpu.prep.prep import (PrepConfig, make_box_stl,
+    from udales_jax.grid import Grid
+    from udales_jax.prep.prep import (PrepConfig, make_box_stl,
                                       prepare_case)
     make_box_stl(tmp_path / "g.stl", 4, 8, 4, 8, 6, 16.0, 16.0)
     cfg = PrepConfig(itot=16, jtot=16, ktot=32, xlen=16.0, ylen=16.0,

@@ -1,4 +1,4 @@
-"""Long-horizon neutral-ABL validation on the TPU chip (example-001 class).
+"""Long-horizon neutral-ABL validation on the accelerator (example-001 class).
 
 Runs O(10^4-10^5) RK3 steps of a pressure-driven neutral ABL (periodic
 x/y, log-law wall functions at the floor, Vreman SGS) in chunked
@@ -42,22 +42,22 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from __graft_entry__ import _build, _init_state
-    from udales_tpu.ops import subgrid as sgs
-    from udales_tpu.run import _velocity_ghosts, thermodynamics
+    from udales_jax.cases import flat_model, flat_state
+    from udales_jax.ops import subgrid as sgs
+    from udales_jax.run import _velocity_ghosts, thermodynamics
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     nchunks = int(sys.argv[2]) if len(sys.argv) > 2 else 200
     chunk = int(sys.argv[3]) if len(sys.argv) > 3 else 500
 
     dpdx = 2.5e-4                      # u* = sqrt(dpdx*zsize)
-    model = _build(n, n, n)
+    model = flat_model(n, n, n)
     model.dpdxl = jnp.full(n, -dpdx, jnp.float32)
     grid = model.grid
     zsize = float(grid.zh[-1])
     ustar = float(np.sqrt(dpdx * zsize))
     z0 = model.cfg.bc.z0
-    state = _init_state(model, amp=0.1)
+    state = flat_state(model, amp=0.1)
     dzh = float(grid.dzf[0])           # uniform grid
     dxi = float(grid.dxi)
 
